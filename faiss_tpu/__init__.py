@@ -1,18 +1,20 @@
-"""faiss_tpu — a TPU-native exact (flat) vector-similarity search framework.
+"""faiss_tpu — an exact (flat) and IVF vector-similarity search framework
+in JAX, running on NVIDIA GPUs (the package keeps the name of its first
+target).
 
 Capability-equivalent rebuild of the faiss-metal reference (a Metal GPU backend
-for FAISS brute-force search, /root/reference) designed TPU-first:
+for FAISS brute-force search):
 
-  * the whole ``search()`` is ONE XLA program (distance GEMM on the MXU with a
+  * the whole ``search()`` is ONE XLA program (distance GEMM with a
     fused L2-norm epilogue + top-k selection) with no host round-trips —
     mirroring the reference's "entire pipeline in one MTLCommandBuffer"
     property (reference: src/MetalIndexFlat.mm:358-381, README.md:149-159);
-  * vector storage in float32 / bfloat16 / float16 HBM tiles with fp32 query
+  * vector storage in float32 / bfloat16 / float16 / int8 device arrays with fp32
     norms computed *before* quantization (reference: MetalIndexFlat.mm:258-267);
-  * Pallas MXU kernels for the fused distance(+top-k) hot path
+  * a Pallas (Triton route) kernel for the fused distance + group-max sweep
     (reference analog: shaders/simdgroup_gemm*.metal, fused_l2_topk.metal);
-  * multi-chip scale-out via a 1-D ``jax.sharding.Mesh`` over the database
-    axis with an ICI all-gather top-k merge (new component — the reference is
+  * multi-device scale-out via a ``jax.sharding.Mesh`` over the database
+    axis with an all-gather top-k merge (new component — the reference is
     single-device).
 
 Public API (parity with include/faiss-metal/MetalIndexFlat.h plus the sharded

@@ -1,4 +1,4 @@
-"""TPU-native k-means + functional knn (faiss::Clustering / faiss.Kmeans
+"""k-means + functional knn (faiss::Clustering / faiss.Kmeans
 parity — beyond the reference surface).
 
 The reference framework has no clustering (MetalIndexFlat IS its surface),
@@ -6,16 +6,16 @@ but faiss users lean on ``faiss.Kmeans`` — itself built on IndexFlat
 search (faiss/Clustering.cpp) — for IVF training, PQ codebooks, and
 dataset exploration; a converted user needs it here.
 
-TPU-first design: training is ONE jitted program — ``lax.scan`` over a
+Design: training is ONE jitted program — ``lax.scan`` over a
 static ``niter`` Lloyd iterations, each iteration a ``lax.map`` over
-static data chunks where BOTH halves of Lloyd run on the MXU:
+static data chunks where BOTH halves of Lloyd run as GEMMs:
 
   * E-step (assign): the shared ``matmul_scores`` GEMM convention
     (ops/distance.py — identical arithmetic to index search, so
     ``Kmeans.index`` assignments agree with training assignments), then an
     argmax over the (chunk, k) block.
   * M-step (update): scatter-add as a second GEMM — ``one_hotᵀ @ x`` with
-    fp32 HIGHEST accumulation (XLA scatters are serial on TPU; the MXU
+    fp32 HIGHEST accumulation (XLA scatters serialize on accelerators; the GEMM
     matmul IS the fast scatter when the index set is dense). Counts are
     exact fp32 column sums.
 
@@ -31,7 +31,7 @@ Faiss-semantics notes:
   * subsampling: > ``max_points_per_centroid``·k training points are
     subsampled exactly like faiss (Clustering.cpp:subsample_training_set).
   * empty clusters: faiss splits the largest cluster with a random sign
-    flip (Clustering.cpp split_clusters). Shape-static TPU variant: the
+    flip (Clustering.cpp split_clusters). Shape-static variant: the
     j-th empty centroid is re-seeded on the point ranked j-th by distance
     to its assigned centroid (the worst-served points), computed with one
     top-k per iteration. Deterministic; documented divergence.
@@ -57,7 +57,7 @@ __all__ = ["Kmeans", "balance_centroids", "kmeans_clustering", "knn",
            "pairwise_distances"]
 
 # static chunk of training rows per E/M block: (chunk, k_pad) score tile and
-# (chunk, d_pad) data tile both stay comfortably inside VMEM-friendly sizes
+# (chunk, d_pad) data tile both stay comfortably inside on-chip-friendly sizes
 _CHUNK = 16_384
 # at most this many empty clusters re-seeded per iteration (shape-static
 # top-k budget; more than this many empties in one iteration is pathological
@@ -94,7 +94,7 @@ def _lloyd_train_fn(*, n_pad: int, k_pad: int, d_pad: int, niter: int,
             bscore = jnp.max(s, axis=-1)
             oh = (jax.nn.one_hot(best, k_pad, dtype=jnp.float32)
                   * vs[:, None].astype(jnp.float32))
-            # scatter-add on the MXU: exact fp32 (HIGHEST multiplies 1.0·x)
+            # scatter-add as a GEMM: exact fp32 (HIGHEST multiplies 1.0·x)
             sums = jax.lax.dot_general(
                 oh, xs, (((0,), (0,)), ((), ())),
                 preferred_element_type=jnp.float32,
@@ -175,7 +175,7 @@ def balance_centroids(x: np.ndarray, centroids: np.ndarray, *,
     ~``cap_ratio`` × the mean occupancy of the training sample.
 
     Plain Lloyd on clustered data leaves heavy skew (1M mixture, k=1024:
-    max list 9263 vs mean 977 — measurements_r5/r4d.log), and the IVF fine
+    max list 9263 vs mean 977), and the IVF fine
     scan's STATIC per-query chunk budget is the sum of the nprobe largest
     lists (`ivf._chunk_budget`), so every query pays the skew tax in
     gather bytes: budget 80 chunks at nprobe=1 where the mean list needs 8.
@@ -260,14 +260,14 @@ def balance_centroids(x: np.ndarray, centroids: np.ndarray, *,
             cp, _ = polish_fn(xd, vd, jax.device_put(pad_cents(centroids)))
             # copy=True: when (k, d) == (k_pad, d_pad) the slice is the
             # whole device_get buffer, which numpy marks read-only — the
-            # next split_pass writes rows in place (r4d2.log crash)
+            # next split_pass writes rows in place
             centroids = np.array(
                 np.asarray(jax.device_get(cp))[:k, :d], np.float32)
     return centroids
 
 
 class Kmeans:
-    """faiss.Kmeans analog over the TPU index machinery.
+    """faiss.Kmeans analog over this package's index machinery.
 
     After ``train(x)``: ``centroids`` (k, d) fp32, ``obj`` (niter,) per-
     iteration objective of the best redo (sum of squared distances for L2,

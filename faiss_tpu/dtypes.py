@@ -23,7 +23,7 @@ class StorageType(enum.Enum):
 
     INT8 goes beyond the reference's Float32/Float16/BFloat16 set
     (MetalIndexFlat.h:39-43): 1 B/element HBM with per-dimension symmetric
-    scales (faiss ScalarQuantizer QT_8bit analog, TPU-native — the int8
+    scales (faiss ScalarQuantizer QT_8bit analog — the int8
     nomination dot is EXACT in int32, so the runtime exactness certificate
     still applies; the win is footprint, ~14M×128/chip). Requires
     train() (or auto-trains on the first add batch)."""

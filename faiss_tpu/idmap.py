@@ -4,7 +4,7 @@ Beyond the reference surface: MetalIndexFlat keeps faiss's dense 0..ntotal-1
 ids (reference: src/MetalIndexFlat.mm:384-400 emits positional int32 labels),
 and faiss users who need their own 64-bit ids wrap a flat index in
 faiss::IndexIDMap (faiss/IndexIDMap.h). These wrappers give converted users
-the same surface over any of the TPU index classes (TpuIndexFlat,
+the same surface over any of the index classes (TpuIndexFlat,
 ShardedIndexFlat, IndexShardsHost):
 
   * ``add_with_ids(x, ids)`` stores the caller's int64 ids; plain ``add``
@@ -58,7 +58,7 @@ def _translate(id_map: np.ndarray, labels: np.ndarray) -> np.ndarray:
 
 
 class TpuIndexIDMap:
-    """faiss::IndexIDMap over any TPU index class (composition, not
+    """faiss::IndexIDMap over any index class of this package (composition, not
     subclassing — the inner index stays usable on its own)."""
 
     def __init__(self, index):

@@ -1,7 +1,7 @@
 """Bulk ingestion: stream large datasets from disk into an index.
 
 The reference has no data loader (vectors arrive via ``add(n, x)`` from user
-memory); at TPU scale the interesting ingest path is disk → host staging →
+memory); at accelerator scale the interesting ingest path is disk → host staging →
 (threaded C++ dtype conversion, native/) → device shards, chunk by chunk, so
 a 100M×128 build never holds the fp32 dataset in host RAM. `.fvecs`/`.bvecs`
 support covers the standard ANN benchmark formats (SIFT1M etc.).

@@ -1,6 +1,6 @@
 // faiss_tpu native runtime — host-side C++ core.
 //
-// TPU-native equivalents of the reference's native host components:
+// Host-side equivalents of the reference's native host components:
 //   * ft_alloc_aligned / ft_free_aligned  ≈ alloc_aligned/free_aligned
 //     (include/faiss-metal/MetalResources.h:20-33): page-aligned staging
 //     buffers so host→device DMA can run zero-copy.

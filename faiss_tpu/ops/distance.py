@@ -3,12 +3,13 @@
 ≈ MetalDistance (src/MetalDistance.{h,mm}): the reference dispatches among an
 MPS GEMM path, custom simdgroup GEMM tiles (32×32 / 64×64, f32/f16/bf16
 storage), and a direct per-pair kernel for tiny nv (MetalDistance.mm:107-323).
-On TPU the "library GEMM" analog is plain ``lax.dot_general`` — XLA maps it to
-the MXU and fuses the ±2α scaling and the norm-broadcast epilogue, so the
+Here the "library GEMM" analog is plain ``lax.dot_general`` — XLA maps it to
+cuBLAS or its own GEMM and fuses the ±2α scaling and the norm-broadcast
+epilogue, so the
 reference's separate ``broadcast_sum_l2`` pass (shaders/broadcast_sum.metal)
 never exists as its own kernel here.
 
-This module is the forever differential oracle for the Pallas kernels
+This module is the forever differential oracle for the fused path
 (the same role the forced-MPS path plays in the reference's cross-path tests,
 tests/test_metal_distance.mm:233-337).
 
@@ -35,7 +36,7 @@ from . import l2norm
 # Problem-size heuristic, named like the reference's dispatch constant
 # (MetalDistance.mm:238 — direct path when nv≤256). The fused-path gate lives
 # in ops/pallas_fused.fused_path_eligible (a measured cost model).
-DIRECT_PATH_MAX_NV = 256          # tiny-db: skip the MXU, do exact per-pair L2
+DIRECT_PATH_MAX_NV = 256          # tiny-db: skip the GEMM, do exact per-pair L2
 
 
 def matmul_scores(
@@ -44,19 +45,18 @@ def matmul_scores(
     db_norms: Optional[jax.Array],  # (nv,) fp32, required for L2
     metric: MetricType,
 ) -> jax.Array:
-    """(nq, nv) fp32 scores via one MXU GEMM + fused epilogue.
+    """(nq, nv) fp32 scores via one GEMM + fused epilogue.
 
     Low-precision storage: queries are cast to the storage dtype for the GEMM
     (halving HBM traffic on the big operand is the win — reference
     simdgroup_gemm.metal:303 reads B as half directly), with fp32 accumulation
-    via ``preferred_element_type`` (the MXU accumulates fp32 natively, like the
+    via ``preferred_element_type`` (the tensor cores accumulate fp32, like the
     reference's fp32 simdgroup accumulators, simdgroup_gemm.metal:45-55).
     """
     dn = (((1,), (1,)), ((), ()))
     if db.dtype == jnp.float32:
-        # True fp32 quality: on TPU the default matmul precision is a single
-        # bf16 MXU pass (~5e-3 rel err); HIGHEST runs the multi-pass fp32
-        # algorithm. The reference's "fp32" GEMM is actually f16-multiply /
+        # True fp32 quality: an fp32 dot may run as TF32 (~1e-3 rel err)
+        # unless a precision is asked for; HIGHEST keeps full fp32. The reference's "fp32" GEMM is actually f16-multiply /
         # f32-accumulate (simdgroup_gemm.metal:26-138) — our *reduced* storage
         # path below is its true analog; fp32 storage here is strictly better.
         dots = jax.lax.dot_general(
@@ -69,7 +69,7 @@ def matmul_scores(
         # 3-way query split makes scores fp32-true w.r.t. the stored
         # (quantized) vectors — the plain path then agrees exactly with the
         # fused path's rescore. ~free when bandwidth-bound (db read is the
-        # cost); 3× MXU only matters for very large nq.
+        # cost); 3× GEMM work only matters for very large nq.
         from ..storage import split3_f32_bf16
 
         dots = None
@@ -78,7 +78,7 @@ def matmul_scores(
                                          preferred_element_type=jnp.float32)
             dots = d_part if dots is None else dots + d_part
     else:
-        # f16 (and pre-cast bf16) inputs: one MXU pass, fp32 accumulate.
+        # f16 (and pre-cast bf16) inputs: one pass, fp32 accumulate.
         dots = jax.lax.dot_general(
             queries.astype(db.dtype), db, dn,
             preferred_element_type=jnp.float32,
@@ -103,7 +103,7 @@ def pair_scores(
     """(nq, nv) scores for pair-only HBM storage (storage.DeviceStore
     pair_only: f16 always, f32 with keep_master=False).
 
-    Four bf16 MXU passes (q_hi+q_lo)·(v_hi+v_lo): every product is exact in
+    Four bf16 passes (q_hi+q_lo)·(v_hi+v_lo): every product is exact in
     fp32, the query pair split is exact to ~2^-16, so scores are fp32-true
     w.r.t. the hi+lo-represented database — the same arithmetic class as the
     fused path's rescore, without ever materializing fp32 rows."""
@@ -151,7 +151,7 @@ def int8_scores(
     q·v̂ = q·(s∘v_q) = (q∘s)·v_q: the query side absorbs the scales, the
     int8 rows cast to bf16 EXACTLY (|v_q| ≤ 127), and the exact 3-way
     split of q∘s makes the dot fp32-true — the same arithmetic class as
-    the fused path's in-kernel rescore, so plain and fused agree."""
+    the fused path's rescore, so plain and fused agree."""
     from ..storage import split3_f32_bf16
 
     qs = queries * scales[None, :]

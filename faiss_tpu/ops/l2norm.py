@@ -1,7 +1,7 @@
 """Row-wise squared-L2 norms.
 
 ≈ MetalL2Norm (src/MetalL2Norm.mm:9-89) + the l2_norm / l2_norm_f16 shaders
-(shaders/l2_norm.metal, shaders/l2_norm_f16.metal). On TPU this is a single
+(shaders/l2_norm.metal, shaders/l2_norm_f16.metal). Here this is a single
 fused VPU reduction; the reference's small-d vs large-d (>1024) kernel split
 and FP16-ALU fast path collapse into one einsum that XLA tiles automatically.
 Kept as a named component because the index precomputes database norms at

@@ -3,7 +3,7 @@
 ≈ MetalSelect (src/MetalSelect.mm) + the warp_select / block_select shaders
 (shaders/warp_select.metal, shaders/block_select.metal). The reference routes
 k ≤ 32 to a 32-thread warp-select and k > 32 to a 256/512-thread block-select;
-on TPU the baseline is ``lax.top_k`` (exact, sort-based) and the scalable path
+here the baseline is ``lax.top_k`` (exact, sort-based) and the scalable path
 is a two-stage chunked select that never materializes the full (nq, nv) score
 matrix for huge nv.
 
@@ -28,10 +28,8 @@ import jax.numpy as jnp
 def topk_scores(scores: jax.Array, k: int) -> Tuple[jax.Array, jax.Array]:
     """Exact top-k over the last axis. Baseline path (≈ warp/block_select).
 
-    Indices-only top_k + value gather: XLA's TPU lowering is measurably
-    faster when the values output of the sort is dead (v5e: consuming both
-    outputs cost +0.2–0.6 ms/batch at 1M×128), and the gather reproduces
-    the values exactly."""
+    Indices-only top_k + a value gather, which reproduces the values
+    exactly (one lowering whether or not a caller consumes the values)."""
     _, idx = jax.lax.top_k(scores, k)
     vals = jnp.take_along_axis(scores, idx, axis=-1)
     return vals, idx.astype(jnp.int32)
@@ -46,7 +44,7 @@ def merge_topk(
 
     The correct analog of block_select's pairwise merge — but keeping the full
     k instead of LOCAL_K=8 (the reference bug noted above). Also the building
-    block for the cross-shard ICI merge (parallel/sharded.py).
+    block for the cross-shard merge (parallel/sharded.py).
     """
     vals = jnp.concatenate([vals_a, vals_b], axis=-1)
     ids = jnp.concatenate([ids_a, ids_b], axis=-1)
@@ -94,38 +92,6 @@ def chunked_topk_scores(
     if nchunks == 1:
         return init
     return jax.lax.fori_loop(1, nchunks, body, init)
-
-
-def blocked_topk_scores(scores: jax.Array, k: int,
-                        block: int = 8192) -> Tuple[jax.Array, jax.Array]:
-    """EXACT two-stage top-k over a wide materialized (nq, m) score array:
-    per-block top-k (one batched indices-only ``lax.top_k`` over (nq, B,
-    block)) → top-k of the B·k survivors. The union of per-block top-k
-    provably contains the global top-k, and tie order is bit-exact with a
-    flat ``lax.top_k``: per-block ties emit in ascending column order
-    (stable sort) and stage 2 resolves equal values to the lowest candidate
-    position = lowest global column. Motivation (measurements_r4/r3n.log):
-    the flat final top-1024 over 131k columns costs ~1.2 of the 2.31 ms
-    large-k fused search — a single sort's cost grows with m while the
-    blocked form sorts B short rows plus one B·k row. Ragged m pads with
-    −inf (never selected ahead of any real candidate; callers' sentinel
-    logic already maps −inf results out)."""
-    nq, m = scores.shape
-    if m <= 2 * block or k > block:
-        return topk_scores(scores, k)
-    nb = -(-m // block)
-    s = scores
-    if nb * block != m:
-        s = jnp.concatenate(
-            [s, jnp.full((nq, nb * block - m), -jnp.inf, s.dtype)], axis=-1)
-    _, pos = jax.lax.top_k(s.reshape(nq, nb, block), k)   # (nq, nb, k)
-    col = pos + (jnp.arange(nb, dtype=pos.dtype) * block)[None, :, None]
-    col = col.reshape(nq, nb * k)
-    cand = jnp.take_along_axis(s, col, axis=-1)
-    _, p2 = jax.lax.top_k(cand, k)                        # indices-only
-    idx = jnp.take_along_axis(col, p2, axis=-1)
-    vals = jnp.take_along_axis(cand, p2, axis=-1)
-    return vals, idx.astype(jnp.int32)
 
 
 def take_topk_rows(db: jax.Array, ids: jax.Array) -> jax.Array:

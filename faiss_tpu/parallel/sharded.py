@@ -10,7 +10,7 @@ Architecture (SURVEY.md §5.8; BASELINE.json config 5):
   * ``search`` is ONE jitted ``shard_map`` program over a 2-D
     ``(replicas, shards)`` mesh: local scan (fused Pallas kernel when
     eligible) + local exact top-k → gid gather → ``jax.lax.all_gather`` of
-    the (k dists, k gids) lists over the shards axis (ICI) → k-merge. The
+    the (k dists, k gids) lists over the shards axis → k-merge. The
     merge is O(P·k), so scaling with P is near-linear until nq·k·P rivals
     the local scan. With ``num_replicas=R`` the query batch splits across
     R replica groups for R× throughput at R× memory.
@@ -63,11 +63,11 @@ def _build_sharded_search_fn(
     f16_clean: bool = False,
     with_sel: bool = False,
 ):
-    """One shard_map program: local scan+select, ICI all-gather, k-merge.
+    """One shard_map program: local scan+select, all-gather, k-merge.
 
     With ``use_fused`` the local scan is the Pallas streaming kernel
     (ops/pallas_fused.py) — each chip sweeps its own shard at HBM speed and
-    only the tiny k-lists ride the ICI. ``with_sel``: a per-shard
+    only the tiny k-lists cross the interconnect. ``with_sel``: a per-shard
     (cap_local,) bool selector stream rides sharded right after ``queries``
     (selector.SearchParams) — honored by the fused AND plain local scans
     (the fused kernels fold it into the pre-masked norm stream)."""
@@ -156,7 +156,7 @@ def _build_sharded_search_fn(
         safe = jnp.clip(ids, 0, db.shape[0] - 1)
         g = jnp.where(valid, jnp.take(gids, safe, axis=0), jnp.int32(-1))
 
-        # ICI merge: all_gather the tiny k-lists, every chip merges identically.
+        # merge: all_gather the tiny k-lists, every device merges identically.
         # the exact cross-shard result needs every LOCAL list exact: AND the
         # per-shard certificates per query
         cert = jnp.all(jax.lax.all_gather(cert, AXIS), axis=0)
@@ -293,7 +293,7 @@ class _ShardStore:
     def _append_gids(self, gids: np.ndarray, off: int, grew: bool) -> None:
         # All intermediates under default_device(shard device): an uncommitted
         # jnp op must never dispatch to the process default backend (the
-        # driver's CPU-mesh dryrun runs under a registered TPU).
+        # CPU-mesh dry run may share a process with an accelerator backend).
         with jax.default_device(self.device):
             if grew or self.gids is None:
                 new_g = jnp.full((self.store.capacity,), -1, jnp.int32)
@@ -314,7 +314,7 @@ class ShardedIndexFlat:
 
     Two composable parallelism axes (the reference has neither — SURVEY §2.4):
       * **shards** (model-parallel analog): the database row-shards across
-        devices; per-shard top-k lists merge over ICI.
+        devices; per-shard top-k lists merge over the interconnect.
       * **replicas** (data-parallel analog, ``num_replicas``): the sharded
         database is replicated ``R`` times and the query batch splits across
         replica groups — R× query throughput for R× memory.
@@ -659,12 +659,6 @@ class ShardedIndexFlat:
         db, norms, gids, ntotals, cap, split = self._assemble()
         max_local = max(s.store.ntotal for s in self.shards)
         nv_eff = min(cap, _round_up(max(max_local, 1), ROW_TILE))
-        # tail-free per-shard sweep when the equalized capacity covers the
-        # direct-tile alignment (see TpuIndexFlat._run_search_fn)
-        d_pad0 = self.shards[0].store.d_pad
-        aligned = _round_up(max(max_local, 1), pallas_fused.DIRECT_BV)
-        if max_local and d_pad0 <= 128 and aligned <= cap:
-            nv_eff = aligned
         chunk = self.tuning.chunk_v
         d_pad = self.shards[0].store.d_pad
         nq_local = nq_pad // self.num_replicas  # per replica group
@@ -685,7 +679,7 @@ class ShardedIndexFlat:
                 dtype=self.shards[0].store.dtype,
             )
         )
-        pair_storage = self.shards[0].store.dtype not in (jnp.bfloat16, jnp.float16)
+        pair_storage = self.shards[0].store.dtype != jnp.bfloat16
         hi_exact = use_fused and stats_zero
         f16_clean = (self.storage_type is StorageType.FLOAT16
                      and any(s.store.ntotal for s in self.shards)
@@ -695,7 +689,7 @@ class ShardedIndexFlat:
                              or nq_local in self._no_reduced_sweep) \
             else pallas_fused.pick_sweep_passes(
                 nq_local, pair_storage and not hi_exact)
-        interpret = not self.res.capabilities.is_tpu
+        interpret = self.res.capabilities.interpret
         pair_only = self.shards[0].store.pair_only
         is_int8 = self.storage_type is StorageType.INT8
         use_split = bool(split) and (is_int8 or use_fused or pair_only)

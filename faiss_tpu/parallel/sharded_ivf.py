@@ -13,10 +13,10 @@ Architecture (the IVF analog of parallel/sharded.py):
     invariant by construction);
   * ``search`` is ONE jitted ``shard_map`` program over a 1-D shards mesh:
     replicated coarse GEMM probe → local bucket gather/score (the SAME
-    ``ivf._probed_scores`` block as the single-chip index, so criteria
+    ``ivf._probed_scores`` block as the single-device index, so criteria
     cannot drift) → local top-k → ``all_gather`` of the (k, gid) lists over
-    ICI → lexicographic merge (score desc, gid asc — tie-exact vs the
-    single-chip index).
+    the interconnect → lexicographic merge (score desc, gid asc —
+    tie-exact vs the single-device index).
 
 Storage kinds mirror TpuIndexIVFFlat: f32 / bf16 / int8 (1 B/elem lists,
 one frozen scale grid shared by every shard — shard-count-invariant
@@ -43,8 +43,8 @@ from ..ops import distance as dist_ops
 from ..resources import TpuResources, default_resources
 from .. import selector as sel_mod
 from ..storage import LANE, _round_up
-from ..ivf import (TpuIndexIVFFlat, _probed_scores, _QB, _GATHER_BUDGET,
-                   _CHUNK, _chunk_budget, _SCAN_RANKS, _SMEM_BUDGET)
+from ..ivf import (TpuIndexIVFFlat, _kernel_scan, _GATHER_BUDGET, _QB,
+                   _CHUNK, _chunk_budget)
 from ..index import TpuSearchToken
 
 AXIS = TpuResources.SHARD_AXIS
@@ -55,22 +55,14 @@ def _build_sharded_ivf_search_fn(*, mesh, nlist: int, nprobe: int,
                                  metric: MetricType, kind: str, nbudget: int,
                                  with_sel: bool = False,
                                  interpret: bool = False):
-    """One shard_map program: replicated probe, local fine scan, ICI merge.
+    """One shard_map program: replicated probe, local fine scan, merge.
 
     fn(data (P·npool·128, d_pad), norms, ids (P·npool·128,) i32 GLOBAL,
     counts (P·nlist,) i32, ctable (P·nlist, maxc) i32 — per-shard page
     tables, cents (nlist_pad, d_pad) replicated, cnorms, q (nq_pad, d_pad)
     replicated [, sel (P·npool·128,)] [, scales (d_pad,)])
     -> (dists (nq_pad, k) f32, glabels (nq_pad, k) i32) replicated."""
-    chunk = _CHUNK
-    ncand = nbudget * chunk
-    k_loc = min(k, ncand)
-    nblocks = nq_pad // _QB
-    use_kernel = kind in ("bf16", "int8", "f32") and nq_pad % 8 == 0
-    if not use_kernel:
-        scores_blk = _probed_scores(nprobe=nprobe, metric=metric,
-                                    kind=kind, with_sel=with_sel,
-                                    nbudget=nbudget)
+    k_loc = min(k, nbudget * _CHUNK)
 
     def per_device(data, norms, ids, counts, ctable, cents, cnorms, q,
                    *extra):
@@ -83,49 +75,14 @@ def _build_sharded_ivf_search_fn(*, mesh, nlist: int, nprobe: int,
         qn = jnp.sum(q * q, axis=-1, dtype=jnp.float32)
         qeff = q * scales[None, :] if kind == "int8" else q
 
-        if use_kernel:
-            # local fine scan = the fused path's scalar-prefetch gather/
-            # rescore kernel (see ivf._build_ivf_search_fn — XLA's gather
-            # measured 2–13 GB/s; the kernel DMAs run at HBM bandwidth)
-            from ..ivf import _chunk_ids
-            from ..ops.pallas_fused import rescore_groups_pallas
-
-            cidx, okc = _chunk_ids(probe, counts, ctable, chunk, nbudget,
-                                   nprobe)
-            occ = ids >= 0
-            sel_eff = occ if sel is None else occ & sel
-            s = rescore_groups_pallas(
-                qeff, data, norms, cidx, jnp.int32(data.shape[0]),
-                metric=metric, nv_eff=data.shape[0], interpret=interpret,
-                # rj=8 only on hardware — see ivf._probed_scores (the
-                # interpret-mode body at rj=8 marginally segfaults the XLA
-                # CPU compiler on the 8-device shard_map program)
-                ranks_per_step=2 if interpret else _SCAN_RANKS,
-                sel=sel_eff)
-            s = jnp.where(jnp.broadcast_to(okc[:, :, None],
-                                           (nq_pad, nbudget, chunk)
-                                           ).reshape(nq_pad, ncand),
-                          s, -jnp.inf)
-            _, pos = jax.lax.top_k(s, k_loc)
-            v = jnp.take_along_axis(s, pos, axis=-1)
-            slot = (jnp.take_along_axis(cidx, pos // chunk, axis=-1) * chunk
-                    + pos % chunk)
-            g = jnp.take(ids, slot, axis=0)
-            if metric is MetricType.L2:
-                v = v - qn[:, None]   # restore the rank-invariant −‖q‖²
-        else:
-            def block(b):
-                s, cid = scores_blk(data, norms, counts, ids, ctable, sel,
-                                    q, qeff, qn, probe, b)
-                vb, i = jax.lax.top_k(s, k_loc)
-                return vb, jnp.take_along_axis(cid, i, axis=-1)
-
-            v, g = jax.lax.map(block, jnp.arange(nblocks, dtype=jnp.int32))
-            v = v.reshape(nq_pad, k_loc)
-            g = g.reshape(nq_pad, k_loc)
+        # local fine scan: the same chunk-scan kernel as the single-device
+        # index (ivf._kernel_scan), over this shard's pool
+        v, g = _kernel_scan(data, norms, counts, ids, ctable, sel, qeff, qn,
+                            probe, nbudget=nbudget, nprobe=nprobe, k=k_loc,
+                            metric=metric, interpret=interpret)
         g = jnp.where(v > -jnp.inf, g, jnp.int32(-1))
 
-        # ICI merge: gather the tiny k-lists; every chip merges identically.
+        # merge: gather the tiny k-lists; every device merges identically.
         av = jax.lax.all_gather(v, AXIS)      # (P, nq_pad, k_loc)
         ag = jax.lax.all_gather(g, AXIS)
         P_ = av.shape[0]
@@ -376,18 +333,18 @@ class ShardedIndexIVFFlat:
         data, norms, ids, counts, ctable, cents, cnorms, scales, npool, \
             maxc = self._assemble()
         # one static budget for the shard_map program: the worst shard's
-        # exact chunk budget (per-shard counts differ). The Pallas fine
-        # scan streams gathered blocks through VMEM — the per-shard
-        # working set is the (nq_pad, ncand) f32 score array.
+        # exact chunk budget (per-shard counts differ); the per-shard
+        # working set is bounded like the single-device index's
         nbudget = max(_chunk_budget(s._counts, nprobe, _CHUNK)
                       for s in self.shards)
-        if nq_pad * nbudget * _CHUNK * 4 > _GATHER_BUDGET:
+        footprint = nq_pad * nbudget * _CHUNK * 4
+        if footprint > _GATHER_BUDGET:
             raise ValueError(
-                f"IVF fine scan working set would be "
-                f"{(nq_pad * nbudget * _CHUNK * 4) >> 20} MB per shard "
-                f"(nprobe={nprobe}, chunk budget={nbudget}); lower nprobe "
-                "(oversized query batches are split automatically — hitting "
-                "this means even one query block exceeds the budget)")
+                f"IVF fine scan working set would be {footprint >> 20} MB "
+                f"per shard (nprobe={nprobe}, chunk budget={nbudget}); "
+                "lower nprobe (oversized query batches are split "
+                "automatically — hitting this means even one query block "
+                "exceeds the budget)")
         sel = self._sel_stream(mask, npool)
         with_sel = sel is not None
         key = ("sharded_ivf", self.num_shards, self.nlist, npool, maxc,
@@ -400,7 +357,7 @@ class ShardedIndexIVFFlat:
                 nq_pad=nq_pad, k=int(k), d_pad=self.d_pad,
                 metric=self.metric, nbudget=nbudget,
                 kind=self.shards[0]._kind, with_sel=with_sel,
-                interpret=not self.res.capabilities.is_tpu))
+                interpret=self.res.capabilities.interpret))
         q = jax.device_put(qp, NamedSharding(self.mesh, P(None, None)))
         args = (data, norms, ids, counts, ctable, cents, cnorms, q)
         if with_sel:
@@ -419,8 +376,7 @@ class ShardedIndexIVFFlat:
             return None
         nbudget = max(_chunk_budget(s._counts, nprobe, _CHUNK)
                       for s in self.shards)
-        cap = min(_GATHER_BUDGET // max(nbudget * _CHUNK * 4, 1),
-                  (_SMEM_BUDGET // 4) // max(nbudget, 1))
+        cap = _GATHER_BUDGET // max(nbudget * _CHUNK * 4, 1)
         return max(_QB, cap // _QB * _QB)
 
     def search_async(self, x, k: int, params=None):

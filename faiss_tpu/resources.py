@@ -1,18 +1,18 @@
 """Device/resource layer: capabilities probe, mesh, compiled-program cache.
 
-TPU-native rebuild of the reference's L1 resource layer:
+Rebuild of the reference's L1 resource layer:
   * ``TpuDeviceCapabilities`` ≈ MetalDeviceCapabilities
     (include/faiss-metal/MetalDeviceCapabilities.h:23-65 — runtime hardware
-    detection driving kernel/tile selection). On TPU the "generation" is the
-    device kind (v4 / v5e / v5p / v6e / CPU-emulation) and the tunables are
-    Pallas block shapes + VMEM budget instead of simdgroup features.
+    detection driving kernel selection). Here it records the platform, the
+    device kind, how Pallas kernels run there (``kernel_mode``) and the
+    per-kind tuning from ``_KIND_TUNING``.
   * ``TpuResources`` ≈ MetalResources/StandardMetalResources
     (include/faiss-metal/MetalResources.h:38-54,
     src/StandardMetalResources.mm:10-45): owns the devices, the 1-D mesh used
     for database sharding, and the compiled-function cache. The reference's
     pipeline-state-object construction at index creation corresponds to jit
-    trace/compile warm-up here; its MTLResidencySet pre-paging is automatic on
-    TPU (device arrays live in HBM).
+    trace/compile warm-up here; its MTLResidencySet pre-paging is automatic
+    (device arrays live in device memory).
   * ``describe_capabilities`` ≈ describeCapabilities()
     (src/MetalDeviceCapabilities.mm:98-124) — the observability hook.
 """
@@ -29,57 +29,69 @@ import numpy as np
 
 @dataclasses.dataclass(frozen=True)
 class KernelTuning:
-    """Per-device-kind Pallas/XLA tile parameters.
+    """Per-device-kind tuning (the reference selects among its pipeline
+    states by generation, MetalDistance.mm:11-103)."""
 
-    The reference selects among 15 pipeline-state objects by generation
-    (MetalDistance.mm:11-103, :225-323). On TPU that machinery collapses to a
-    small set of block-shape defaults; XLA autotunes the rest.
-    """
-
-    # MXU-aligned distance-GEMM tile (rows = queries, cols = db vectors).
-    block_q: int = 128
-    block_v: int = 1024
-    # Contraction (d) tile; d is usually small enough to keep whole.
-    block_d: int = 512
-    # VMEM budget the fused kernel may assume (bytes). ~16 MB/core typical;
-    # leave headroom for double buffering.
-    vmem_budget: int = 12 * 1024 * 1024
-    # nv chunk size for the two-stage (chunked) top-k path.
+    # nv chunk size of the plain path's two-stage (chunked) top-k and of
+    # range_search's column blocks.
     chunk_v: int = 256 * 1024
-    # Provenance: "measured" = validated on real hardware of this kind;
-    # "estimated" = extrapolated, never run on that generation (VERDICT r1:
-    # don't present estimates as measured facts); "default" = generic.
+    # where the values come from (a measurement with its card, or "test")
     source: str = "default"
 
 
+# Keyed by jax.Device.device_kind. A GPU kind missing here raises: another
+# card's values are not this card's.
 _KIND_TUNING = {
-    # Keys matched by substring of device_kind.lower(). Only v5e has been
-    # measured (2026-08, one real chip); v6/v5p/v4 entries are estimates
-    # scaled by HBM/VMEM ratios and are flagged as such in describe().
-    "v6": KernelTuning(block_q=256, block_v=2048, source="estimated"),
-    "v5p": KernelTuning(block_q=256, block_v=2048, source="estimated"),
-    "v5": KernelTuning(source="measured"),          # v5e / v5 lite
-    "v4": KernelTuning(source="estimated"),
-    "cpu": KernelTuning(block_q=128, block_v=512, chunk_v=64 * 1024,
-                        vmem_budget=4 * 1024 * 1024, source="measured"),
+    # plain bf16 search at 10M×128, nq=100 (PERF.md): 64K 85.0 ms, 256K
+    # 71.3, 1M 64.3, 2M 66.3 (H100 80GB HBM3 at a 400 W power limit)
+    "NVIDIA H100 80GB HBM3": KernelTuning(
+        chunk_v=1024 * 1024, source="H100 plain-path chunk_v sweep"),
+    # the test platform: small chunks keep interpret-mode programs cheap
+    "cpu": KernelTuning(chunk_v=64 * 1024, source="test"),
 }
+
+# platform -> how Pallas kernels run there
+_KERNEL_MODE = {"gpu": "compiled", "cpu": "interpret"}
+
+
+def kernel_mode_for(platform: str) -> str:
+    """"compiled" on the GPU (the Triton route), "interpret" on the CPU test
+    platform; any other platform has no kernel route and raises."""
+    try:
+        return _KERNEL_MODE[platform]
+    except KeyError:
+        raise ValueError(
+            f"faiss_tpu runs on platforms {sorted(_KERNEL_MODE)}, "
+            f"not {platform!r}") from None
+
+
+def tuning_for(platform: str, device_kind: str) -> KernelTuning:
+    """The tuning row of ``device_kind`` (the CPU row for any CPU)."""
+    key = "cpu" if platform == "cpu" else device_kind
+    try:
+        return _KIND_TUNING[key]
+    except KeyError:
+        raise ValueError(
+            f"no tuning for device kind {device_kind!r}; known kinds: "
+            f"{sorted(_KIND_TUNING)}") from None
 
 
 @dataclasses.dataclass(frozen=True)
 class TpuDeviceCapabilities:
     """Runtime hardware description (≈ MetalDeviceCapabilities)."""
 
-    platform: str                 # "tpu" | "cpu" | "gpu"
-    device_kind: str              # e.g. "TPU v5 lite"
+    platform: str                 # "gpu" | "cpu"
+    device_kind: str              # e.g. "NVIDIA H100 80GB HBM3"
     num_devices: int
     num_local_devices: int
-    is_tpu: bool
     hbm_bytes: Optional[int]      # per-device, if the runtime reports it
-    supports_bfloat16_matmul: bool
-    mxu_dim: int                  # systolic array edge (128)
-    lane_width: int               # VPU lane count (128)
-    sublanes_f32: int             # min sublane tile for f32 (8)
+    kernel_mode: str              # "compiled" | "interpret"
     tuning: KernelTuning
+
+    @property
+    def interpret(self) -> bool:
+        """Whether Pallas kernels run in the interpreter (CPU only)."""
+        return self.kernel_mode == "interpret"
 
     def describe(self) -> str:
         lines = [
@@ -89,10 +101,8 @@ class TpuDeviceCapabilities:
             f"  num_devices         : {self.num_devices}"
             f" (local {self.num_local_devices})",
             f"  hbm_bytes/device    : {self.hbm_bytes}",
-            f"  bf16 matmul         : {self.supports_bfloat16_matmul}",
-            f"  mxu / lanes / subl  : {self.mxu_dim} / {self.lane_width}"
-            f" / {self.sublanes_f32}",
-            f"  tuning ({self.tuning.source:>9}) : {self.tuning}",
+            f"  kernel mode         : {self.kernel_mode}",
+            f"  tuning              : {self.tuning}",
         ]
         return "\n".join(lines)
 
@@ -113,27 +123,17 @@ def query_device_capabilities(
     """Probe the runtime (≈ queryDeviceCapabilities, MetalDeviceCapabilities.mm:8-96)."""
     devices = list(devices) if devices is not None else list(jax.devices())
     d0 = devices[0]
-    kind = getattr(d0, "device_kind", d0.platform)
     platform = d0.platform
-    kind_l = (kind or platform).lower()
-    tuning = _KIND_TUNING["cpu" if platform == "cpu" else "v5"]
-    for key, t in _KIND_TUNING.items():
-        if key in kind_l:
-            tuning = t
-            break
+    kind = getattr(d0, "device_kind", platform)
     return TpuDeviceCapabilities(
         platform=platform,
         device_kind=kind,
         num_devices=len(devices),
         num_local_devices=len([d for d in devices
                                if d.process_index == jax.process_index()]),
-        is_tpu=(platform == "tpu"),
         hbm_bytes=_probe_hbm_bytes(d0),
-        supports_bfloat16_matmul=True,   # MXU-native on all TPU gens; fine on CPU too
-        mxu_dim=128,
-        lane_width=128,
-        sublanes_f32=8,
-        tuning=tuning,
+        kernel_mode=kernel_mode_for(platform),
+        tuning=tuning_for(platform, kind),
     )
 
 
@@ -190,11 +190,9 @@ class TpuResources:
         """Return cache[key], building it once if absent.
 
         The builder runs OUTSIDE the global lock under a per-key event:
-        program builds can be multi-minute remote compiles, and holding the
-        one lock across a build wedged every concurrent search on the index
-        (the 10M pipelined hang, measurements_r5/ivf10m_v3.log — one
-        certificate-fallback tier compile under depth-64 serving blocked
-        all 64 workers' cache lookups). Concurrent callers of the SAME key
+        program builds can take minutes, and holding the one lock across a
+        build would wedge every concurrent search on the index behind one
+        certificate-fallback compile. Concurrent callers of the SAME key
         wait on its event; other keys proceed."""
         with self._lock:
             got = self._cache.get(key)

@@ -9,7 +9,7 @@ are masked to −inf score inside the jitted scan, so they can never be
 nominated, and fewer-than-k admissible rows sentinel-fill like a small
 index (faiss semantics).
 
-TPU shape discipline: the selector becomes ONE device bool stream of
+Static-shape discipline: the selector becomes ONE device bool stream of
 capacity length. The plain paths apply it per column block in
 `_masked_scores_block`; the fused kernels fold it into the SAME pre-masked
 norm stream that already masks padding rows (+inf norm → −inf score in the

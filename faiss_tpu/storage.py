@@ -12,9 +12,9 @@
     its sweep error with max‖v‖ (ops/pallas_fused._sweep_eps);
   * dtype conversion is round-to-nearest-even on device (the reference does an
     RNE bit-trick on host CPU, mm:226-243; XLA's convert_element_type is RNE);
-  * TPU layout: rows are padded to a row-tile multiple and the feature dim is
-    padded to the 128-lane boundary so Pallas kernels always see aligned
-    tiles. Padding rows are zero and masked out by id at select time.
+  * layout: rows are padded to a row-tile multiple and the feature dim is
+    padded to a multiple of 128 so the sweep kernel always sees whole
+    d steps. Padding rows are zero and masked out by id at select time.
 
 The reference's MTLResidencySet pre-paging (StandardMetalResources.mm:83-91)
 has no analog: jax.Arrays are HBM-resident by construction.
@@ -39,7 +39,7 @@ MIN_CAPACITY = 1024     # reference: MetalIndexFlat.mm:199 (max(1024, 2*cap))
 # src/MetalIndexFlat.mm:228-256).
 NATIVE_CONVERT_MIN_ELEMS = 1 << 20
 ROW_TILE = 1024         # capacity granularity; keeps nv aligned for chunked/Pallas paths
-LANE = 128              # TPU lane width; d padded to this
+LANE = 128              # d padded to a multiple of this (the sweep's d step)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -66,7 +66,7 @@ def split_f32_bf16(x: jax.Array):
     `hi` is x TRUNCATED to bf16 via bit masking — an arithmetic
     `x - x.astype(bf16)` gets elided by XLA's excess-precision
     simplifier (lo would be all zeros); the bitcast form cannot be.
-    Used by the fused kernel's fp32 sweep: three bf16 MXU passes
+    Used by the fused kernel's fp32 sweep: three bf16 passes
     (hi·hi + hi·lo + lo·hi) give fp32-grade ranking at bf16 compile cost.
     """
     u = jax.lax.bitcast_convert_type(x, jnp.uint32)
@@ -80,13 +80,14 @@ def split_f32_bf16(x: jax.Array):
 
 def decode_f16_bits(bits: jax.Array) -> jax.Array:
     """int16 f16 bit patterns → EXACT f32 values. Branchless, and every
-    intermediate is a NORMAL f32 (TPU flushes f32 denormals — CLAUDE.md):
+    intermediate is a NORMAL f32, so the decode stays exact on hardware that
+    flushes f32 denormals:
     f16 subnormals go through the magic-exponent add trick
     (bitcast(0x38800000 | m<<13) − 2^-14 = m·2^-24 exactly, min 2^-24 ≫
     2^-126). This is how 2 B/elem f16 storage decodes inside Pallas sweep/
-    rescore kernels AND in the plain-XLA path (Mosaic has no f16 type;
+    kernel AND in the plain-XLA path (one bit-exact decode everywhere;
     the reference reads f16 directly in its GEMM, simdgroup_gemm.metal:303
-    — this is the TPU equivalent at the same 2 B/elem footprint).
+    — the same 2 B/elem footprint).
     e=31 patterns (±inf, NaN) map to ±inf."""
     h = bits.astype(jnp.int32) & 0xFFFF
     m = h & 0x7FFF
@@ -128,7 +129,7 @@ def split_f16_bits_clean(bits: jax.Array):
     h = bits.astype(jnp.int32) & 0xFFFF
     o = ((h & 0x7FFF) << 13) | ((h & 0x8000) << 16)
     # e5 ≥ 1 for clean nonzero patterns → the pre-scale f32 is NORMAL
-    # (exp field = e5 ∈ [1, 30]) — no TPU denormal flush; ×2^112 exact
+    # (exp field = e5 ∈ [1, 30]) — no denormal flush; ×2^112 exact
     f = jax.lax.bitcast_convert_type(o, jnp.float32) * jnp.float32(2.0 ** 112)
     uf = jax.lax.bitcast_convert_type(f, jnp.uint32)
     hi_f32 = jax.lax.bitcast_convert_type(uf & jnp.uint32(0xFFFF0000),
@@ -150,7 +151,7 @@ def split3_f32_bf16(x: jax.Array):
 
     fp32 has 24 mantissa bits = 3 × bf16's 8; truncating twice leaves a
     residual with ≤ 8 significant bits, so the last term is exact. Used for
-    fp32-true rescoring against bf16-stored rows in three MXU passes.
+    fp32-true rescoring against bf16-stored rows in three bf16 passes.
     """
     def trunc(v):
         u = jax.lax.bitcast_convert_type(v, jnp.uint32)
@@ -243,6 +244,22 @@ def _split_stats_fn(old, vecs32, hi, lo):
     return jnp.maximum(old, batch)
 
 
+@jax.jit
+def _f16_stats_fn(old, bits):
+    """f16 bit-pattern rows → (running split statistics, count of inf/NaN
+    patterns), in one program so the decoded f32 rows are never
+    materialized. The stats are over the decoded pair (exact for f16
+    values, ≤11 significand bits). The dirty-pattern counter keeps the
+    kernels on the generic decode when nonzero (split_f16_bits_clean needs
+    clean bits); subnormals were flushed to ±0 at ingest (_append), so any
+    well-formed finite data is clean. Padding columns are +0."""
+    v32 = decode_f16_bits(bits)
+    hi, lo = split_f32_bf16(v32)
+    h = bits.astype(jnp.int32) & 0xFFFF
+    dirty = jnp.sum(((h & 0x7C00) == 0x7C00).astype(jnp.float32))
+    return _split_stats_fn(old, v32, hi, lo), dirty
+
+
 def _grow_fn(old_db, old_norms, new_capacity: int):
     db = jnp.zeros((new_capacity, old_db.shape[1]), old_db.dtype)
     norms = jnp.zeros((new_capacity,), jnp.float32)
@@ -273,9 +290,9 @@ class DeviceStore:
                            lives in host RAM for reconstruct/IO      4 B
     The reference stores exactly one copy (MetalIndexFlat.mm:270-307) and
     reads f16 at 2 B/elem directly in its GEMM (simdgroup_gemm.metal:303);
-    f16-bits storage matches that footprint exactly (VERDICT r2 missing
-    #2 — the old mode stored the derived pair at 4 B/elem), while the f32
-    pair is what lets fp32-grade ranking ride the bf16 MXU. Pair-ranked
+    f16-bits storage matches that footprint exactly (an earlier mode stored
+    the derived pair at 4 B/elem), while the f32 pair is what lets
+    fp32-grade ranking ride bf16 tensor-core passes. Pair-ranked
     modes score by the hi+lo value: exact for f16, ≈2^-16 relative for
     f32 (a 16-bit-mantissa quantization — far above bf16).
     """
@@ -295,8 +312,8 @@ class DeviceStore:
         self.storage = storage
         self.metric = metric
         self.dtype = _JNP_DTYPE[storage]
-        # HBM dtype: f16 stores the bit patterns (Mosaic has no f16 type;
-        # kernels decode in-register — split_f16_bits)
+        # device dtype: f16 stores the bit patterns (the sweep kernel
+        # decodes them in-register — split_f16_bits)
         self._db_dtype = (jnp.int16 if storage is StorageType.FLOAT16
                           else self.dtype)
         self.device = device
@@ -391,9 +408,8 @@ class DeviceStore:
         """Creation context: every uncommitted intermediate (jnp.zeros,
         eager converts, pads) lands on the pinned device, never on the
         process default backend. Critical when the default backend is a
-        different accelerator than the mesh this store shards over (the
-        driver's multichip dryrun: CPU mesh under a registered TPU —
-        MULTICHIP_r01.json failed exactly here)."""
+        different backend than the mesh this store shards over (a CPU-mesh
+        dry run in a process that also holds an accelerator backend)."""
         if self.device is not None:
             return jax.default_device(self.device)
         return contextlib.nullcontext()
@@ -458,17 +474,14 @@ class DeviceStore:
             bits = vecs if vecs.dtype == jnp.int16 else \
                 jax.lax.bitcast_convert_type(
                     vecs.astype(jnp.float16), jnp.int16)
-            v32 = decode_f16_bits(bits)
-            hi, lo = split_f32_bf16(v32)  # exact for f16 values (≤11 bits)
-            # exact dirty-pattern counter: inf/NaN keeps the kernels on
-            # the generic decode (split_f16_bits_clean needs clean bits);
-            # subnormals were flushed to ±0 at ingest (_append), so any
-            # well-formed finite data is clean. Padding columns are +0.
-            h = bits.astype(jnp.int32) & 0xFFFF
-            dirty = jnp.sum(((h & 0x7C00) == 0x7C00).astype(jnp.float32))
+            if self.split_stats is None:
+                self.split_stats = self._put(jnp.zeros((2,), jnp.float32))
+            self.split_stats, dirty = _f16_stats_fn(self.split_stats, bits)
             self._f16_dirty = dirty if self._f16_dirty is None \
                 else self._f16_dirty + dirty
             self._f16_clean_host = None
+            self._split_stats_host = None
+            return
         elif self._has_split:
             v32 = vecs.astype(jnp.float32)
             hi, lo = split_f32_bf16(v32)
@@ -516,7 +529,7 @@ class DeviceStore:
         """Append n fp32 vectors. Norms computed pre-quantization (fp32).
 
         Accepts numpy or jax arrays; device arrays (e.g. embeddings produced
-        on-TPU) stay on device — no host round trip."""
+        on the accelerator) stay on device — no host round trip."""
         if isinstance(x, jax.Array):
             if x.ndim != 2 or x.shape[1] != self.d:
                 raise ValueError(
@@ -596,8 +609,8 @@ class DeviceStore:
                 vecs = jax.lax.bitcast_convert_type(
                     vecs.astype(jnp.float16), jnp.int16)
             # flush f16 subnormals to ±0 at ingest (values < 2^-14 ≈ 6.1e-5;
-            # the TPU itself flushes f32 denormals in every on-device op, so
-            # this makes storage consistent with the arithmetic) — the lean
+            # accelerators may flush f32 denormals in on-device ops, so this
+            # keeps storage consistent with the arithmetic) — the lean
             # clean-bits kernel decode then applies to ALL well-formed data,
             # not just data without near-zeros. Search exactness is always
             # w.r.t. the STORED database; norms are computed from fp32
@@ -823,7 +836,7 @@ class DeviceStore:
     def reconstruct_batch(self, keys) -> np.ndarray:
         """(len(keys), d) fp32 decode of ARBITRARY stored ids: one device
         gather + one transfer (search_and_reconstruct's old per-element host
-        loop was VERDICT r3 weak #7). Same bits as reconstruct() per key."""
+        loop was hostile at large k). Same bits as reconstruct() per key."""
         keys = np.asarray(keys, np.int64).ravel()
         if keys.size == 0:
             return np.zeros((0, self.d), np.float32)

@@ -133,60 +133,20 @@ def test_profiler_trace_smoke(tmp_path):
         _ = jnp.sum(jnp.ones((8, 8))).block_until_ready()
 
 
-def test_blocked_topk_bit_parity_with_flat():
-    """blocked_topk_scores == lax.top_k (values, ids, TIE order) on random
-    and tie-heavy data, ragged widths included."""
-    import jax.numpy as jnp
-    from faiss_tpu.ops import topk as topk_ops
-
-    rng = np.random.default_rng(5)
-    for m, k, block in [(131584, 1024, 8192), (70000, 777, 8192),
-                        (65536, 2048, 8192), (40000, 100, 8192),
-                        (16384, 10, 8192)]:
-        s = rng.standard_normal((4, m)).astype(np.float32)
-        # heavy ties: quantize half the rows to few levels
-        s[2:] = np.round(s[2:] * 2.0) / 2.0
-        sj = jnp.asarray(s)
-        vb, ib = topk_ops.blocked_topk_scores(sj, k, block=block)
-        vf, if_ = topk_ops.topk_scores(sj, k)
-        np.testing.assert_array_equal(np.asarray(ib), np.asarray(if_)), (m, k)
-        np.testing.assert_array_equal(np.asarray(vb), np.asarray(vf))
-    # all -inf rows degrade like top_k (sentinel handling downstream)
-    s = np.full((2, 70000), -np.inf, np.float32)
-    vb, ib = topk_ops.blocked_topk_scores(jnp.asarray(s), 64)
-    assert np.isneginf(np.asarray(vb)).all()
-
-
 def test_fused_large_k_blocked_final_select_parity():
-    """k=1024 fused search (blocked final selection engaged) == plain path
-    result SETS on a fused-forced index."""
+    """k=1024 fused search (the final selection runs over 131k candidate
+    columns) == plain path result SETS on a fused-forced index."""
     import faiss_tpu
     from faiss_tpu.ops import pallas_fused as pf
 
     orig = pf.fused_path_eligible
     pf.fused_path_eligible = lambda **kw: kw["nv_eff"] >= 8192
-    orig_min = pf.FINAL_BLOCKED_MIN
     try:
         xb, xq = make_data(140000, 8, 32, seed=77)
-        # r5: default routing is flat (the blocked form measured 32% slower
-        # e2e on hardware, r5g.log) — force the blocked path here so its
-        # exactness contract stays enforced
-        pf.FINAL_BLOCKED_MIN = 65536
         idx = faiss_tpu.TpuIndexFlat(32, storage="bf16")
         idx.add(xb)
-        D, I = idx.search(xq, 1024)   # kg=1028 -> s width 131k -> blocked
-        # fused-internal: blocked final select must be BIT-IDENTICAL to the
-        # flat lax.top_k final select (fresh resources: the compiled-fn
-        # cache is shape-keyed and must not serve the blocked program)
-        from faiss_tpu.resources import TpuResources
-
-        pf.FINAL_BLOCKED_MIN = 1 << 30
-        idx_flat = faiss_tpu.TpuIndexFlat(32, storage="bf16",
-                                          resources=TpuResources())
-        idx_flat.add(xb)
-        Df, If = idx_flat.search(xq, 1024)
-        np.testing.assert_array_equal(I, If)
-        np.testing.assert_array_equal(D, Df)
+        D, I = idx.search(xq, 1024)   # kg=1028 -> s width 131k
+        assert idx.fused_fallbacks == 0
         # cross-path (plain XLA): SET parity per row — near-tie ranks may
         # legitimately swap across accumulation orders (smoke-suite contract)
         idx.set_force_xla(True)
@@ -197,4 +157,3 @@ def test_fused_large_k_blocked_final_select_parity():
                                    rtol=1e-5, atol=1e-4)
     finally:
         pf.fused_path_eligible = orig
-        pf.FINAL_BLOCKED_MIN = orig_min

@@ -44,15 +44,15 @@ def test_faiss_roundtrip_f32():
     xb, xq = make_data(5000, 16, 64)
     cpu = faiss.IndexFlatL2(64)
     cpu.add(xb)
-    tpu = index_cpu_to_tpu(cpu)
-    assert tpu.ntotal == cpu.ntotal and tpu.d == cpu.d
+    dev = index_cpu_to_tpu(cpu)
+    assert dev.ntotal == cpu.ntotal and dev.d == cpu.d
     # search parity: recall 1.0 vs faiss itself (the BASELINE acceptance bar)
     Df, If = cpu.search(xq, 10)
-    Dt, It = tpu.search(xq, 10)
+    Dt, It = dev.search(xq, 10)
     assert recall_at_k(It, If, 10) == 1.0
     np.testing.assert_allclose(Dt, Df, rtol=1e-4, atol=1e-4)
     # …and back: vectors bit-exact (reference test_metal_flat.mm:161-170)
-    cpu2 = index_tpu_to_cpu(tpu)
+    cpu2 = index_tpu_to_cpu(dev)
     np.testing.assert_array_equal(
         cpu2.reconstruct_n(0, cpu2.ntotal), xb
     )
@@ -63,12 +63,12 @@ def test_faiss_roundtrip_ip_and_reduced():
     xb, xq = make_data(3000, 8, 32)
     cpu = faiss.IndexFlatIP(32)
     cpu.add(xb)
-    tpu = index_cpu_to_tpu(cpu, storage="f16")
+    dev = index_cpu_to_tpu(cpu, storage="f16")
     Df, If = cpu.search(xq, 5)
-    Dt, It = tpu.search(xq, 5)
+    Dt, It = dev.search(xq, 5)
     # f16 quantization: top-1 must match (reference tolerance ladder §2.3.7)
     np.testing.assert_array_equal(It[:, 0], If[:, 0])
-    cpu2 = index_tpu_to_cpu(tpu)  # goes through the reconstruct slow path
+    cpu2 = index_tpu_to_cpu(dev)  # goes through the reconstruct slow path
     rec = cpu2.reconstruct_n(0, cpu2.ntotal)
     np.testing.assert_allclose(rec, xb.astype(np.float16), rtol=1e-3, atol=1e-3)
 
@@ -117,14 +117,14 @@ def test_cpu_to_tpu_executes_against_api_double(monkeypatch):
     xb, xq = make_data(3000, 8, 64)
     cpu = faiss.IndexFlatL2(64)
     cpu.add(xb)
-    tpu = index_cpu_to_tpu(cpu)
-    assert tpu.ntotal == cpu.ntotal and tpu.d == cpu.d
+    dev = index_cpu_to_tpu(cpu)
+    assert dev.ntotal == cpu.ntotal and dev.d == cpu.d
     D_ref, I_ref = numpy_search(xb, xq, 10, "l2")
-    Dt, It = tpu.search(xq, 10)
+    Dt, It = dev.search(xq, 10)
     assert recall_at_k(It, I_ref, 10) == 1.0
     np.testing.assert_allclose(Dt, D_ref, rtol=1e-4, atol=1e-4)
     # …and back: fp32 master storage exports the exact original bits
-    cpu2 = index_tpu_to_cpu(tpu)
+    cpu2 = index_tpu_to_cpu(dev)
     assert cpu2.metric_type == faiss.METRIC_L2
     np.testing.assert_array_equal(cpu2.reconstruct_n(0, cpu2.ntotal), xb)
 
@@ -134,13 +134,13 @@ def test_cpu_to_tpu_ip_reduced_against_api_double(monkeypatch):
     xb, xq = make_data(2000, 4, 32)
     cpu = faiss.IndexFlatIP(32)
     cpu.add(xb)
-    tpu = index_cpu_to_tpu(cpu, storage="bf16")
-    assert tpu.metric.value == "ip"
+    dev = index_cpu_to_tpu(cpu, storage="bf16")
+    assert dev.metric.value == "ip"
     D_ref, I_ref = numpy_search(xb, xq, 5, "ip")
-    Dt, It = tpu.search(xq, 5)
+    Dt, It = dev.search(xq, 5)
     np.testing.assert_array_equal(It[:, 0], I_ref[:, 0])  # top-1 ladder rung
-    # tpu→cpu for reduced precision goes through the reconstruct slow path
-    cpu2 = index_tpu_to_cpu(tpu)
+    # device→cpu for reduced precision goes through the reconstruct slow path
+    cpu2 = index_tpu_to_cpu(dev)
     rec = cpu2.reconstruct_n(0, cpu2.ntotal)
     assert np.abs(rec - xb).max() <= np.abs(xb).max() * 2 ** -7
 

@@ -1,9 +1,8 @@
 """The driver's own entry points must work in-process.
 
-Round 1's MULTICHIP_r01.json failed because dryrun_multichip let uncommitted
-ops dispatch to the registered (but broken) TPU backend. These tests run the
-exact driver entry functions under the emulated 8-device CPU mesh so a
-regression is caught before the driver does.
+dryrun_multichip must never let uncommitted ops dispatch to another backend
+registered in the process. These tests run the exact entry functions under
+the emulated 8-device CPU mesh so a regression is caught early.
 """
 
 import numpy as np

@@ -6,7 +6,7 @@ Coverage map vs the reference suite:
   f16/bf16 storage, relaxed tol        (mm:223-268)    test_reduced_precision_storage
   reconstruct precision after f16      (mm:262-265)    test_reconstruct_reduced
   edge nq=1,k=1                        (mm:490)        test_edge_single
-  roundtrip cpu↔tpu                    (mm:132-176)    test_numpy_roundtrip
+  roundtrip cpu↔device                 (mm:132-176)    test_numpy_roundtrip
   reset / re-add                       (mm:178-196)    test_reset_readd
   reconstruct exactness fp32           (mm:198-221)    test_reconstruct_fp32
   async == sync bit-exact              (mm:309-347)    test_async_matches_sync
@@ -252,7 +252,7 @@ def test_describe():
 
 
 def test_add_device_arrays():
-    """jax.Array inputs stay on device (embeddings produced on-TPU)."""
+    """jax.Array inputs stay on device (embeddings produced on the accelerator)."""
     import jax.numpy as jnp
 
     xb, xq = make_data(1500, 8, 64)
@@ -305,7 +305,7 @@ def test_ntotal_dev_tracks_mutation():
 def test_assign_chunks_huge_batches():
     """Bulk assign (the IVF add path) must chunk on the host: one 1M-query
     search against a 4096-row table materialized a 16 GB score matrix and
-    OOMed the chip (measurements_r4/ivf1m_v2.log). Chunks are enqueued
+    ran out of device memory. Chunks are enqueued
     async (pipelined through a remote link) and concatenate in order."""
     rng = np.random.default_rng(33)
     xb = rng.standard_normal((2048, 16)).astype(np.float32)

@@ -48,8 +48,9 @@ def test_auto_train_on_first_add():
     assert idx.is_trained and idx.ntotal == 512
 
 
-def test_exact_vs_decoded_oracle_and_parity():
+def test_exact_vs_decoded_oracle_and_parity(monkeypatch):
     """Fused == plain == exact top-k of the decoded database, certified."""
+    monkeypatch.setattr(pallas_fused, "FUSED_MIN_NV", 8192)  # fused at this nv
     xb, xq = make_data(16384, 8, 64)
     idx = TpuIndexFlat(64, storage="int8")
     idx.add(xb)

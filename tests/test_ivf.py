@@ -12,6 +12,8 @@ TpuIndexFlat's result sets.
 import numpy as np
 import pytest
 
+import jax.numpy as jnp
+
 import faiss_tpu
 from faiss_tpu import MetricType, TpuIndexIVFFlat
 
@@ -581,10 +583,9 @@ def test_ivf_batch_split_matches_unsplit(monkeypatch):
 
 @pytest.mark.parametrize("storage", ["bf16", "int8"])
 def test_dense_fused_route_matches_xla_dense(storage, monkeypatch):
-    """nprobe == nlist rides the flat fused program over the pool prefix
-    (r5 — the XLA dense sweep measured 17.0 ms vs the fused 0.52 at 1M,
-    r4d.log). Forcing the route on a small pool (the DIRECT_BV alignment
-    gate only guards the remote-compile hazard, not correctness): results
+    """nprobe == nlist rides the flat fused program over the pool prefix.
+    Forcing the route on a small pool (the size gate is about speed, not
+    correctness): results
     must be exhaustive-exact — bit-equal to the XLA dense program on
     integer data — through the full token/cert/fallback plumbing."""
     from faiss_tpu import ivf as ivf_mod
@@ -634,7 +635,7 @@ def test_dense_fused_selector_and_removals(monkeypatch):
 def test_balanced_training_caps_skew():
     """balance=2.0 (the default) splits oversized clusters at train time so
     the fine scan's static chunk budget (_chunk_budget: sum of the nprobe
-    FATTEST lists) stops paying the k-means skew tax (r4d.log: 1M mixture
+    FATTEST lists) stops paying the k-means skew tax (1M mixture
     max list 9.5x mean). Skewed mixture: the balanced quantizer's max
     occupancy must come out well under the raw one, search must stay exact
     vs the probed-list oracle, and balance=0 must restore raw behavior."""
@@ -664,3 +665,37 @@ def test_balanced_training_caps_skew():
     Do, Io = ivf_oracle(bal, xb, xq, 5, 4)
     np.testing.assert_array_equal(I, Io)
     np.testing.assert_array_equal(D, Do)
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+def test_chunk_scan_kernel_matches_xla_scan(storage):
+    """The gather route's chunk-scan kernel (interpret mode here) and the
+    plain XLA take + batched-dot scan return the same ids and (to f32
+    summation order) the same distances, with a selector and removals
+    masking slots."""
+    from faiss_tpu import ivf as ivf_mod
+
+    rng = np.random.default_rng(5)
+    xb = rng.standard_normal((3000, 40)).astype(np.float32)
+    xq = rng.standard_normal((13, 40)).astype(np.float32)
+    ix = TpuIndexIVFFlat(40, 16, nprobe=5, storage=storage, seed=2)
+    ix.train(xb)
+    ix.add(xb)
+    ix.remove_ids(np.arange(0, 3000, 7))
+    sel = np.zeros(ix.npool * ivf_mod._CHUNK, bool)
+    sel[ix._slot_of[: ix.ntotal // 2]] = True
+    qp, nq, nq_pad, nprobe, nbudget, _ = ix._prep_search(xq, None)
+    outs = []
+    for xla_scan in (False, True):
+        fn = ivf_mod._build_ivf_search_fn(
+            nlist=16, nprobe=nprobe, nq_pad=nq_pad, k=6, d_pad=ix.d_pad,
+            metric=ix.metric, kind=ix._kind, nbudget=nbudget,
+            with_sel=True, interpret=True, xla_scan=xla_scan)
+        outs.append(fn(ix._data, ix._norms, ix._counts_dev, ix._ids,
+                       ix._ctable, ix._cents, ix._cnorms, jnp.asarray(qp),
+                       jnp.asarray(sel), ix._scales, ix._int8_qn))
+    (d0, i0), (d1, i1) = outs
+    np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
+    np.testing.assert_allclose(np.asarray(d0), np.asarray(d1),
+                               rtol=1e-5, atol=1e-4)
+    assert (np.asarray(i0)[:nq] < ix.ntotal // 2).all()

@@ -1,8 +1,9 @@
-"""Fused Pallas kernel tests (interpret mode on CPU; compiled path covered by
-the same code on TPU — cross-path consistency is the reference's forced-MPS
-pattern, tests/test_metal_distance.mm:233-337).
+"""Fused-path tests (the sweep kernel runs in interpret mode on CPU; the
+compiled kernel is covered by tests/test_gpu_smoke.py on the card —
+cross-path consistency is the reference's forced-MPS pattern,
+tests/test_metal_distance.mm:233-337).
 
-The fused path = Pallas group-max sweep + top-group selection + fp32
+The fused path = group-max sweep kernel + top-group selection + fp32
 gather/rescore (ops/pallas_fused.py). It must match the plain XLA path
 (lax.top_k over the full score matrix) exactly for fp32 storage, including
 tie-breaking; reduced precision compares against the quantized-db oracle.
@@ -97,14 +98,15 @@ def test_fused_bf16_storage():
     assert got == want  # same top-10 sets
 
 
-def test_fused_index_integration():
+def test_fused_index_integration(monkeypatch):
     """TpuIndexFlat dispatches to the fused path and matches force_xla."""
+    monkeypatch.setattr(pallas_fused, "FUSED_MIN_NV", 8192)  # fused at this nv
     from faiss_tpu import TpuIndexFlat
 
     xb, xq = make_data(16384, 8, 64)
     idx = TpuIndexFlat(64)
     idx.add(xb)
-    D1, I1 = idx.search(xq, 10)   # fused (nv ≥ FUSED_MIN_NV, k ≤ FUSED_MAX_K)
+    D1, I1 = idx.search(xq, 10)   # fused
     idx.set_force_xla(True)
     D2, I2 = idx.search(xq, 10)   # plain XLA
     np.testing.assert_array_equal(I1, I2)
@@ -118,8 +120,7 @@ def test_eligibility_gate():
     # large-k allowed when the gather stays below plain's k-scaled topk cost
     assert ok(metric=MetricType.L2, k=1024, nv_eff=1 << 20, d_pad=128,
               nq_pad=8)
-    # large-d small-nv: gather rivals the sweep → plain path (measured 7×
-    # slower fused on v5e at this shape)
+    # large-d small-nv: gather rivals the sweep → plain path
     assert not ok(metric=MetricType.L2, k=10, nv_eff=1 << 16, d_pad=1536,
                   nq_pad=16)
     # k=100 over a modest db with many queries: gather outweighs
@@ -127,7 +128,7 @@ def test_eligibility_gate():
                   nq_pad=104)
     # tiny db: plain is already trivial
     assert not ok(metric=MetricType.L2, k=10, nv_eff=1024, d_pad=128)
-    # fp32 hi/lo tile pair caps d at 1024
+    # fp32 at d=1536: the 4 B/elem candidate gather exceeds its budget
     assert not ok(metric=MetricType.L2, k=10, nv_eff=1 << 20, d_pad=1536,
                   itemsize=4)
 
@@ -168,8 +169,8 @@ def test_fused_nq_multiblock():
 
 
 def test_top_groups_hierarchical_equivalence():
-    """_top_groups' hierarchical path (ngroups >= 64K) must equal plain
-    lax.top_k including tie order (ties injected via rounding)."""
+    """_top_groups at 64K groups must equal plain lax.top_k including tie
+    order (ties injected via rounding), with t = the (kg+1)-th value."""
     from faiss_tpu.ops.pallas_fused import _top_groups
 
     rng = np.random.default_rng(11)
@@ -186,9 +187,10 @@ def test_top_groups_hierarchical_equivalence():
         np.testing.assert_array_equal(np.asarray(t), np.asarray(wv)[:, kg])
 
 
-def test_bf16_cross_path_exact():
+def test_bf16_cross_path_exact(monkeypatch):
     """With the 3-way split everywhere, plain-XLA and fused bf16 paths are
     BOTH fp32-true vs the stored vectors — their ids must agree exactly."""
+    monkeypatch.setattr(pallas_fused, "FUSED_MIN_NV", 8192)  # fused at this nv
     from faiss_tpu import TpuIndexFlat
 
     xb, xq = make_data(16384, 8, 64)
@@ -201,9 +203,10 @@ def test_bf16_cross_path_exact():
     np.testing.assert_allclose(D1, D2, rtol=1e-6, atol=1e-5)
 
 
-def test_fused_f16_storage():
+def test_fused_f16_storage(monkeypatch):
     """f16 storage through the fused path: the bf16 (hi, lo) pair reproduces
     f16 values exactly, so results are the exact top-k of the quantized db."""
+    monkeypatch.setattr(pallas_fused, "FUSED_MIN_NV", 8192)  # fused at this nv
     from faiss_tpu import TpuIndexFlat
     from faiss_tpu.storage import split_f32_bf16
 
@@ -228,11 +231,12 @@ def test_fused_f16_storage():
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("storage", ["f32", "bf16", "f16"])
-def test_cross_path_all_configs(metric, storage):
+def test_cross_path_all_configs(metric, storage, monkeypatch):
     """force_xla vs fused for every metric × storage (≈ the reference's
     default-vs-forced-MPS parity tests for L2 AND IP,
     test_metal_distance.mm:233-337). fp32/bf16 agree exactly; f16's plain
     path is single-pass (score precision differs) so compare sets."""
+    monkeypatch.setattr(pallas_fused, "FUSED_MIN_NV", 8192)  # fused at this nv
     from faiss_tpu import TpuIndexFlat
 
     xb, xq = make_data(16384, 8, 64)
@@ -359,15 +363,11 @@ def test_no_fallback_on_random(monkeypatch):
 @pytest.mark.parametrize("metric", [MetricType.L2, MetricType.INNER_PRODUCT])
 @pytest.mark.parametrize("kw", [
     {"sweep_passes": 1},
-    {"rescore_take": True},
-    {"sweep_passes": 1, "rescore_take": True},
-    {"approx_groups": True},
-    {"sweep_passes": 1, "approx_groups": True},
-    {"rescore_select": True},
-    {"sweep_passes": 1, "rescore_select": True},
+    {"xla_sweep": True},
+    {"sweep_passes": 1, "xla_sweep": True},
 ])
 def test_fused_variants_match_default(metric, kw):
-    """The single-pass sweep and take-based rescore variants return the same
+    """The single-pass sweep and the plain XLA group-max return the same
     ids as the default fused path (bf16 storage) and still certify on
     random data — the certificate is what licenses the cheaper sweep."""
     rng = np.random.default_rng(11)
@@ -474,11 +474,10 @@ def test_certificate_integer_data_large_k(monkeypatch):
 
 
 @pytest.mark.parametrize("metric", [MetricType.L2, MetricType.INNER_PRODUCT])
-def test_hier_bmax_phase2_matches_flat(metric, monkeypatch):
-    """The bmax-hierarchical phase 2 (kernel-emitted supergroup maxes) must
-    return the same ids and certify identically to the flat top_k path,
-    including on tie-heavy data (duplicated rows)."""
-    monkeypatch.setattr(pallas_fused, "HIER_MIN_GROUPS", 64)
+def test_tie_heavy_kernel_matches_xla_sweep(metric):
+    """On tie-heavy data (every row duplicated, ragged ntotal) the sweep
+    kernel and the plain XLA group-max must nominate alike: same ids, same
+    values and the same per-query certificate."""
     rng = np.random.default_rng(21)
     base = rng.standard_normal((8192, 64)).astype(np.float32)
     xb = np.concatenate([base, base[:8192]])  # every vector twice → ties
@@ -486,13 +485,10 @@ def test_hier_bmax_phase2_matches_flat(metric, monkeypatch):
     norms = _norms(db)
     q = jnp.asarray(rng.standard_normal((8, 64)).astype(np.float32))
     nt = jnp.int32(xb.shape[0] - 7)
-    v1, i1, c1 = pallas_fused.fused_search(
-        q, db, norms, nt, k=12, metric=metric, nv_eff=xb.shape[0],
-        interpret=True)
-    monkeypatch.setattr(pallas_fused, "HIER_MIN_GROUPS", 1 << 30)  # flat
-    v2, i2, c2 = pallas_fused.fused_search(
-        q, db, norms, nt, k=12, metric=metric, nv_eff=xb.shape[0],
-        interpret=True)
+    kw = dict(k=12, metric=metric, nv_eff=xb.shape[0], interpret=True)
+    v1, i1, c1 = pallas_fused.fused_search(q, db, norms, nt, **kw)
+    v2, i2, c2 = pallas_fused.fused_search(q, db, norms, nt, xla_sweep=True,
+                                           **kw)
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
     np.testing.assert_allclose(np.asarray(v1), np.asarray(v2),
                                rtol=1e-6, atol=1e-6)
@@ -501,9 +497,10 @@ def test_hier_bmax_phase2_matches_flat(metric, monkeypatch):
 
 @pytest.mark.parametrize("seed", range(4))
 def test_select_kernel_matches_top_groups(seed):
-    """The Pallas phase-2 select kernel must reproduce _top_groups + sort
-    EXACTLY: same nominated set (ties to lowest group id), ascending order,
-    identical certificate threshold."""
+    """Phase 2 (_top_groups, then the ascending sort fused_search applies)
+    must nominate exactly the top-kg groups with ties to the LOWEST group
+    id, and return the certificate threshold t = max NON-nominated
+    group-max (−inf when every group is nominated)."""
     rng = np.random.default_rng(400 + seed)
     nq = [8, 104, 128, 16][seed]
     ngroups = [128, 7816, 61, 16384][seed]
@@ -511,39 +508,14 @@ def test_select_kernel_matches_top_groups(seed):
     gm = rng.standard_normal((nq, ngroups)).astype(np.float32)
     if seed % 2:
         gm = np.round(gm, 1)  # many exact ties at the nomination boundary
-    gmj = jnp.asarray(gm)
-    gidx, t = pallas_fused.select_groups_pallas(
-        gmj, kg, ngroups, interpret=True)
-    ref_gidx, ref_t = pallas_fused._top_groups(gmj, kg, ngroups)
-    ref_gidx = jnp.sort(ref_gidx, axis=-1)
-    np.testing.assert_array_equal(np.asarray(gidx), np.asarray(ref_gidx))
-    np.testing.assert_array_equal(np.asarray(t), np.asarray(ref_t))
-
-
-@pytest.mark.parametrize("metric", [MetricType.L2, MetricType.INNER_PRODUCT])
-def test_rescore_select_matches_two_stage(metric, monkeypatch):
-    """The single-kernel rescore+select (in-kernel running top-k, k ≤ 32)
-    must match the two-stage Pallas rescore → masked lax.top_k pipeline
-    BIT-EXACTLY, including tie order under massive duplication and the
-    ntotal mask. (rescore_take is NOT the reference here — its batched-dot
-    accumulation shape differs by 1 ulp from the per-pass kernels.)"""
-    rng = np.random.default_rng(77)
-    nv, d, nq, k = 16384, 64, 16, 12
-    base = rng.standard_normal((nv // 4, d)).astype(np.float32)
-    xb = np.tile(base, (4, 1))                      # exact ties everywhere
-    db = jnp.asarray(xb).astype(jnp.bfloat16)
-    norms = _norms(jnp.asarray(xb))
-    q = jnp.asarray(rng.standard_normal((nq, d)).astype(np.float32))
-    nt = jnp.int32(nv - 300)                        # exercise the mask too
-    vals, ids, cert = pallas_fused.fused_search(
-        q, db, norms, nt, k=k, metric=metric, nv_eff=nv, interpret=True,
-        rescore_select=True)
-    # reference: the default two-stage pipeline (Pallas rescore + XLA top_k)
-    rvals, rids, rcert = pallas_fused.fused_search(
-        q, db, norms, nt, k=k, metric=metric, nv_eff=nv, interpret=True)
-    np.testing.assert_array_equal(np.asarray(ids), np.asarray(rids))
-    np.testing.assert_array_equal(np.asarray(vals), np.asarray(rvals))
-    np.testing.assert_array_equal(np.asarray(cert), np.asarray(rcert))
+    gidx, t = pallas_fused._top_groups(jnp.asarray(gm), kg, ngroups)
+    order = np.argsort(-gm, axis=1, kind="stable")
+    np.testing.assert_array_equal(np.sort(np.asarray(gidx), axis=-1),
+                                  np.sort(order[:, :kg], axis=-1))
+    rest = np.take_along_axis(gm, order[:, kg:], axis=1)
+    want_t = (rest.max(axis=1) if kg < ngroups
+              else np.full(nq, -np.inf, np.float32))
+    np.testing.assert_array_equal(np.asarray(t), want_t)
 
 
 def test_selective_per_query_fallback(monkeypatch):
@@ -593,23 +565,20 @@ def test_selective_per_query_fallback(monkeypatch):
     np.testing.assert_array_equal(np.asarray(I), order)
 
 
-@pytest.mark.parametrize("storage", ["bf16", "f32", "f16", "int8"])
-def test_xla_tail_matches_full_pallas_sweep(storage, monkeypatch):
-    """nv between direct-tile multiples splits into a direct-layout Pallas
-    main + an XLA-dot tail (r3c: the second Mosaic tail kernel crashed the
-    remote compiler on the fp32 e2e program). Results must match the
-    all-Pallas transposed sweep (values from the shared rescore; nomination
-    differences are certificate-covered)."""
+def _sweep_case(storage, nv, d, nq, seed):
+    """(positional args, kwargs) of fused_search for one storage mode over
+    Gaussian rows (the TRUE stored split stats — fabricated zeros would
+    understate eps and certify unsoundly)."""
     from faiss_tpu.storage import (_quantize_int8_fn, encode_f16_bits,
-                                   split_f32_bf16, _split_stats_fn)
+                                   decode_f16_bits, split_f32_bf16,
+                                   _split_stats_fn)
 
-    nv, d, nq, k = 16384 + 2048, 128, 16, 10
-    rng = np.random.default_rng(55)
+    rng = np.random.default_rng(seed)
     xb = rng.standard_normal((nv, d)).astype(np.float32)
     q = jnp.asarray(rng.standard_normal((nq, d)).astype(np.float32))
     xbj = jnp.asarray(xb)
     norms = jnp.sum(xbj * xbj, axis=-1)
-    kwargs = dict(k=k, metric=MetricType.L2, nv_eff=nv, interpret=True)
+    kwargs = {}
     if storage == "bf16":
         args = (q, xbj.astype(jnp.bfloat16), norms, jnp.int32(nv))
     elif storage == "f32":
@@ -618,9 +587,6 @@ def test_xla_tail_matches_full_pallas_sweep(storage, monkeypatch):
         args = (q, xbj, norms, jnp.int32(nv))
         kwargs.update(db_split=(hi, lo), split_stats=stats)
     elif storage == "f16":
-        # the TRUE stored stats (max‖v_lo‖ is nonzero on Gaussian f16 data;
-        # fabricated zeros would understate eps and certify unsoundly)
-        from faiss_tpu.storage import decode_f16_bits
         bits = encode_f16_bits(xbj)
         v32 = decode_f16_bits(bits)
         hi, lo = split_f32_bf16(v32)
@@ -633,21 +599,57 @@ def test_xla_tail_matches_full_pallas_sweep(storage, monkeypatch):
         db8, n8, vqmax, _ = _quantize_int8_fn(xbj, scales)
         args = (q, db8, n8, jnp.int32(nv))
         kwargs.update(scales=scales, int_norm_max=vqmax)
+    return args, kwargs
+
+
+@pytest.mark.parametrize("storage", ["bf16", "f32", "f16", "int8"])
+def test_xla_tail_matches_full_pallas_sweep(storage):
+    """A ragged nv (not a whole number of sweep programs) runs the last
+    program over fewer groups. The fused search through the sweep kernel
+    (interpret mode) must equal the one through the plain XLA group-max
+    (values come from the shared rescore; nomination differences are
+    certificate-covered), and both must certify."""
+    nv = 16384 + 2048 + 128
+    args, kwargs = _sweep_case(storage, nv, 128, 16, 55)
+    kwargs.update(k=10, metric=MetricType.L2, nv_eff=nv, interpret=True)
     v1, i1, c1 = pallas_fused.fused_search(*args, **kwargs)
     assert np.asarray(c1).all()
-    # force main=0: the whole sweep runs the transposed Pallas kernel
-    monkeypatch.setattr(pallas_fused, "DIRECT_BV", 1 << 30)
-    v2, i2, c2 = pallas_fused.fused_search(*args, **kwargs)
+    v2, i2, c2 = pallas_fused.fused_search(*args, xla_sweep=True, **kwargs)
     assert np.asarray(c2).all()
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
     np.testing.assert_array_equal(np.asarray(v1), np.asarray(v2))
 
 
-def test_f32_two_stage_rescore_matches_single_stage(monkeypatch):
-    """fp32 two-stage rescore (in-kernel pair scores nominate, exact HIGHEST
-    on the top-(k+pad) masters only) must return bit-identical values/ids to
-    the single-stage full-gather rescore, with the tier-2 certificate
-    holding (r3: kills the ~95 MB candidate-row materialization)."""
+@pytest.mark.parametrize("metric", [MetricType.L2, MetricType.INNER_PRODUCT])
+@pytest.mark.parametrize("storage", ["bf16", "f32", "f16", "int8"])
+def test_sweep_kernel_matches_xla_groupmax(storage, metric):
+    """The sweep kernel (interpret mode) against the plain XLA group-max,
+    per storage × metric, on a ragged nv with rows past ntotal masked to
+    −inf. Both accumulate the same exact products in f32/int32; only the
+    summation order may differ."""
+    nv, nq = 4096 + 384, 24
+    args, kwargs = _sweep_case(storage, nv, 128, nq, 77)
+    q, db, norms, _ = args
+    nt = jnp.int32(nv - 200)
+    kw = dict(metric=metric, nv_eff=nv, interpret=True,
+              scales=kwargs.get("scales"))
+    split = kwargs.get("db_split")
+    for passes in (1, 2):
+        a = np.asarray(pallas_fused.groupmax_scores(
+            q, db, norms, nt, split, sweep_passes=passes, **kw))
+        b = np.asarray(pallas_fused.groupmax_scores(
+            q, db, norms, nt, split, sweep_passes=passes, xla_sweep=True,
+            **kw))
+        assert a.shape == (nq, nv // 128)
+        np.testing.assert_array_equal(np.isneginf(a), np.isneginf(b))
+        fin = np.isfinite(b)
+        np.testing.assert_allclose(a[fin], b[fin], rtol=1e-6, atol=1e-4)
+
+
+def test_f32_rescore_matches_oracle():
+    """fp32 storage: the rescore gathers the f32 master rows and re-dots
+    them at HIGHEST precision, so ids equal the float64 oracle's and every
+    query certifies on Gaussian data."""
     from faiss_tpu.storage import split_f32_bf16, _split_stats_fn
 
     nv, d, nq, k = 32768, 128, 16, 10
@@ -658,19 +660,10 @@ def test_f32_two_stage_rescore_matches_single_stage(monkeypatch):
     hi, lo = split_f32_bf16(xbj)
     stats = _split_stats_fn(jnp.zeros((2,), jnp.float32), xbj, hi, lo)
     norms = jnp.sum(xbj * xbj, axis=-1)
-    kwargs = dict(k=k, metric=MetricType.L2, nv_eff=nv, interpret=True,
-                  db_split=(hi, lo), split_stats=stats)
-    assert pallas_fused.F32_TWO_STAGE
-    v1, i1, c1 = pallas_fused.fused_search(q, xbj, norms, jnp.int32(nv),
-                                           **kwargs)
+    v1, i1, c1 = pallas_fused.fused_search(
+        q, xbj, norms, jnp.int32(nv), k=k, metric=MetricType.L2, nv_eff=nv,
+        interpret=True, db_split=(hi, lo), split_stats=stats)
     assert np.asarray(c1).all()
-    monkeypatch.setattr(pallas_fused, "F32_TWO_STAGE", False)
-    v2, i2, c2 = pallas_fused.fused_search(q, xbj, norms, jnp.int32(nv),
-                                           **kwargs)
-    assert np.asarray(c2).all()
-    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
-    np.testing.assert_array_equal(np.asarray(v1), np.asarray(v2))
-    # float64 oracle: exact ids
     s = 2.0 * (np.asarray(q, np.float64) @ xb.astype(np.float64).T)
     s -= (xb.astype(np.float64) ** 2).sum(1)[None, :]
     order = np.argsort(-s, axis=1, kind="stable")[:, :k]
@@ -678,8 +671,11 @@ def test_f32_two_stage_rescore_matches_single_stage(monkeypatch):
 
 
 def test_final_select_kernel_matches_lax_topk():
-    """final_select_pallas == lax.top_k (values AND tie order) on random
-    data with planted duplicates and -inf padding columns."""
+    """The final selection (topk.topk_scores: indices-only lax.top_k + a
+    value gather) == lax.top_k (values AND tie order) on random data with
+    planted duplicates and -inf padding columns."""
+    from faiss_tpu.ops import topk as topk_ops
+
     rng = np.random.default_rng(11)
     s = rng.standard_normal((16, 1792)).astype(np.float32)
     s[:, 100] = s[:, 700] = s[:, 1500]          # planted cross-column ties
@@ -687,7 +683,7 @@ def test_final_select_kernel_matches_lax_topk():
     s[3, :] = -np.inf                           # fully-masked row
     sj = jnp.asarray(s)
     for k in (1, 10, 32):
-        v1, p1 = pallas_fused.final_select_pallas(sj, k, interpret=True)
+        v1, p1 = topk_ops.topk_scores(sj, k)
         v2, p2 = jax.lax.top_k(sj, k)
         np.testing.assert_array_equal(np.asarray(v1), np.asarray(v2))
         np.testing.assert_array_equal(np.asarray(p1), np.asarray(p2))
@@ -721,9 +717,10 @@ def test_hi_exact_bit_identical_on_integer_data(metric):
     assert np.asarray(c1).all()  # zero stats → certifies everywhere
 
 
-def test_hi_exact_index_dispatch_integer_data():
+def test_hi_exact_index_dispatch_integer_data(monkeypatch):
     """TpuIndexFlat on integer data: split_stats_host reads (0, 0), the
     fused search stays exact vs the plain path, and fallbacks stay 0."""
+    monkeypatch.setattr(pallas_fused, "FUSED_MIN_NV", 8192)  # fused at this nv
     from faiss_tpu import TpuIndexFlat
 
     rng = np.random.default_rng(11)

@@ -2,7 +2,7 @@
 
 Beyond the reference surface: MetalIndexFlat never implements range_search
 (its faiss::Index base throws), but faiss::IndexFlat users have it, so the
-TPU index provides it with faiss semantics — strict dist < radius (L2) /
+index here provides it with faiss semantics — strict dist < radius (L2) /
 dist > radius (IP), (lims, D, I) CSR layout. Integer-valued data makes every
 storage mode's arithmetic exact, so set comparisons against the oracle are
 strict (no tolerance band at the radius boundary).

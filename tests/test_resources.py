@@ -1,11 +1,11 @@
-"""TpuResources compiled-program cache — concurrency contract.
+"""Resource layer: the compiled-program cache's concurrency contract, and
+the capability probe (kernel mode per platform, per-kind tuning table).
 
-The r5 10M serving wedge (measurements_r5/ivf10m_v3.log): builder() ran
-under the ONE global lock, so a multi-minute fallback-tier compile blocked
-every concurrent search's cache lookup. The contract now: builds run
-outside the lock under per-key events — a slow key never blocks other
-keys, a key builds exactly once, and a raising builder leaves the cache
-re-attemptable.
+Cache: a builder running under the ONE global lock would let a
+multi-minute fallback-tier compile block every concurrent search's cache
+lookup. The contract: builds run outside the lock under per-key events —
+a slow key never blocks other keys, a key builds exactly once, and a
+raising builder leaves the cache re-attemptable.
 """
 import threading
 import time
@@ -109,3 +109,43 @@ def test_waiter_retries_after_owner_failure(res):
     tw.join(timeout=30)
     assert errs == ["owner failed"]
     assert vals == ["second-try"]
+
+
+# -- capability layer: kernel mode and the per-device-kind tuning table -----
+
+@pytest.mark.parametrize("platform,mode", [
+    ("gpu", "compiled"),
+    ("cpu", "interpret"),
+    ("tpu", None),
+    ("rocm", None),
+])
+def test_kernel_mode_per_platform(platform, mode):
+    """Compiled kernels on the GPU, the interpreter on the CPU test
+    platform, and no route at all anywhere else."""
+    from faiss_tpu.resources import kernel_mode_for
+
+    if mode is None:
+        with pytest.raises(ValueError, match="platforms"):
+            kernel_mode_for(platform)
+    else:
+        assert kernel_mode_for(platform) == mode
+
+
+def test_unknown_gpu_kind_raises():
+    """A GPU kind missing from the table must not borrow another card's
+    tuning."""
+    from faiss_tpu.resources import tuning_for
+
+    with pytest.raises(ValueError, match="no tuning"):
+        tuning_for("gpu", "NVIDIA A100-SXM4-80GB")
+    assert tuning_for("gpu", "NVIDIA H100 80GB HBM3").chunk_v > 0
+    assert tuning_for("cpu", "any cpu").source == "test"
+
+
+def test_cpu_capabilities_interpret():
+    import faiss_tpu
+
+    caps = faiss_tpu.query_device_capabilities()
+    assert caps.platform == "cpu" and caps.kernel_mode == "interpret"
+    assert caps.interpret
+    assert "kernel mode" in caps.describe()

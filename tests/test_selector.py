@@ -289,9 +289,8 @@ def test_fused_filtered_matches_plain_cross_path(storage, monkeypatch):
     ix.set_force_xla(True)
     Dp, Ip = ix.search(xq, 10, params=params)
     np.testing.assert_array_equal(I, Ip)
-    # ids exact; values last-ulp-close across paths (the f32 two-stage
-    # rescore's batched dot may round differently from the plain matmul on
-    # the CPU backend — pallas_fused two-stage note / scripts/fuzz_parity).
+    # ids exact; values last-ulp-close across paths (the rescore's batched
+    # dot may round differently from the plain matmul on the CPU backend).
     # f16: the plain path's 4-pass pair GEMM drops the ~2^-16 query-split
     # residual that the fused rescore's exact 3-way split keeps, so values
     # agree to ~2^-16 relative, not to the ulp.

@@ -113,10 +113,13 @@ def test_sharded_reconstruct_and_reset():
     np.testing.assert_array_equal(idx.reconstruct(3), xb[3])
 
 
-def test_sharded_fused_path():
+def test_sharded_fused_path(monkeypatch):
     """Per-shard Pallas fused kernel (interpret on CPU) must agree with the
     single-device index and the oracle when shards are big enough to cross
     the fused gate (nv_eff >= FUSED_MIN_NV per shard)."""
+    from faiss_tpu.ops import pallas_fused
+
+    monkeypatch.setattr(pallas_fused, "FUSED_MIN_NV", 8192)  # small shards
     from faiss_tpu.ops.pallas_fused import FUSED_MIN_NV
 
     nv = NDEV * (FUSED_MIN_NV + 600)
@@ -158,9 +161,12 @@ def test_query_replicas_validation():
         ShardedIndexFlat(16, num_replicas=NDEV + 1, num_shards=2)
 
 
-def test_sharded_fused_bf16_path():
-    """bf16 per-shard fused path (incl. the scalar-prefetch Pallas rescore
-    kernel) inside shard_map must match the quantized-db oracle."""
+def test_sharded_fused_bf16_path(monkeypatch):
+    """bf16 per-shard fused path (sweep kernel + gather rescore) inside
+    shard_map must match the quantized-db oracle."""
+    from faiss_tpu.ops import pallas_fused
+
+    monkeypatch.setattr(pallas_fused, "FUSED_MIN_NV", 8192)  # small shards
     from faiss_tpu.ops.pallas_fused import FUSED_MIN_NV
 
     nv = NDEV * (FUSED_MIN_NV + 600)
